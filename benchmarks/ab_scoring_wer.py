@@ -3,7 +3,7 @@
 Answers two questions the judged metric ("throughput at matched WER")
 depends on, with the very system bench.py times:
 
-1. Does bf16 scoring change decisions vs f32-HIGHEST? (throughput dtype)
+1. Does float16 scoring change decisions vs f32-HIGHEST? (throughput dtype)
 2. Does max-mode (Viterbi approximation, best component only) change
    decisions vs exact logsumexp? (epilogue throughput option)
 
@@ -25,7 +25,9 @@ import time
 
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+    from mogasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-utts", type=int, default=256)
     ap.add_argument("--bundle", default=None)
@@ -35,7 +37,7 @@ def main() -> None:
     import jax.numpy as jnp
 
     from mogasr import pipeline as pipe
-    from mogasr.am.gmm_pallas import gmm_loglik_batched
+    from mogasr.am.gmm_pallas import score_frames
     from mogasr.config import BatchConfig, DecodeConfig
     from mogasr.data import synthetic as syn
     from mogasr.data.batching import make_batches
@@ -78,8 +80,8 @@ def main() -> None:
 
     variants = [
         ("f32_sum", dict(compute_dtype="float32", mode="sum")),
-        ("bf16_sum", dict(compute_dtype="bfloat16", mode="sum")),
-        ("bf16_max", dict(compute_dtype="bfloat16", mode="max")),
+        ("f16_sum", dict(compute_dtype="float16", mode="sum")),
+        ("f16_max", dict(compute_dtype="float16", mode="max")),
     ]
     refs = [[w.lower() for w in b.words[i]] for _f, _n, b in prepared
             for i in range(len(b.utt_ids))]
@@ -90,7 +92,7 @@ def main() -> None:
         t0 = time.time()
         hyps = []
         for feats, n_frames, b in prepared:
-            ll = gmm_loglik_batched(feats, gmm, **kw)
+            ll = score_frames(feats, gmm, **kw)
             res = vit.viterbi(ll, graphs, n_frames,
                               acoustic_scale=dcfg.acoustic_scale)
             toks = vit.path_to_tokens(res, graph.labels, chain_id)

@@ -12,7 +12,7 @@ decoder over the full buffer, so the budget multiplies the whole final).
 Hypotheses are bitwise-identical (tests/test_aed.py::
 test_early_exit_beam_equals_full_scan).
 
-Protocol: TPU_NOTES — interleaved epochs across the two arms, multi-second
+Protocol: interleaved epochs across the two arms, multi-second
 windows, median; full session lifecycle per epoch.
 
     python benchmarks/bench_aed_earlyexit.py --capacity 64 --epochs 3
@@ -54,7 +54,9 @@ def main() -> None:
                         "results_aed_earlyexit_ab.json)")
     args = p.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+    from mogasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     if args.cpu:

@@ -32,7 +32,7 @@ def main() -> None:
 
     from mogasr import pipeline as pipe
     from mogasr.am.gmm import GmmSet
-    from mogasr.am.gmm_pallas import gmm_loglik_batched
+    from mogasr.am.gmm_pallas import score_frames
     from mogasr.config import BatchConfig, DecodeConfig, FrontendConfig, TopologyConfig
     from mogasr.data.batching import make_batches
     from mogasr.data.synthetic import make_corpus
@@ -66,13 +66,13 @@ def main() -> None:
     T = feats.shape[1]
     graph = pipe.word_decode_graph(lex, topo, dcfg)
     graphs = {k: jnp.asarray(v) for k, v in gr.batch_graphs([graph] * B).items()}
-    ll = gmm_loglik_batched(feats, gmm, compute_dtype="bfloat16")
+    ll = score_frames(feats, gmm, "float16")
 
     results = {
         "batch": f"B={B} T={T} J={graph.n_states} S={S} K={K}",
         "frontend_ms": round(timeit(lambda: fe(waves, ns)) * 1e3, 2),
-        "gmm_scoring_bf16_ms": round(
-            timeit(lambda: gmm_loglik_batched(feats, gmm, compute_dtype="bfloat16")) * 1e3, 2
+        "gmm_scoring_f16_ms": round(
+            timeit(lambda: score_frames(feats, gmm, "float16")) * 1e3, 2
         ),
         "viterbi_decode_ms": round(
             timeit(lambda: vit.viterbi(ll, graphs, nf, acoustic_scale=0.1)) * 1e3, 2

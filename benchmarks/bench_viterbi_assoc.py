@@ -1,10 +1,10 @@
 """A/B: sequential lax.scan Viterbi vs the chunked transfer-matrix form.
 
 VERDICT r4 item 5 / SURVEY §7 hard-part 2: the log-depth "associative
-scan over T" candidate has sat on the TPU_NOTES candidates list for three
+scan over T" candidate has sat on the candidates list for three
 rounds while the headline plateaued and the r3 analysis found the forward
 scan latency-bound at small batch. The TRUE log-depth form needs max-plus
-matrix-matrix combines: O(J^3) VPU work per pair (no MXU for max-plus) —
+matrix-matrix combines: O(J^3) elementwise work per pair (no matrix unit does max-plus) —
 at the headline word-loop J that is thousands of times the sequential
 work, rejected by arithmetic (recorded in the output JSON). The viable
 variant is viterbi_chunked (mogasr/decoder/viterbi.py): depth T -> C +
@@ -47,7 +47,9 @@ def main() -> None:
     p.add_argument("--chunk", type=int, default=32)
     args = p.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+    from mogasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     if args.cpu:
@@ -77,8 +79,8 @@ def main() -> None:
         "J": J,
         "work_ratio_vs_sequential": round(J * J / 3.0, 1),
         "note": "max-plus matrix-matrix associative_scan costs ~J^2/deg x "
-                "the sequential work on the VPU (max-plus cannot use the "
-                "MXU); rejected by arithmetic, the chunked O(J^2) form is "
+                "the sequential work in elementwise ops (max-plus cannot "
+                "use a matrix unit); rejected by arithmetic, the chunked O(J^2) form is "
                 "the measured arm",
     }
 

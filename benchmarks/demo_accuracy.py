@@ -6,7 +6,7 @@ utterances, then decodes 24 unseen utterances with (a) unigram loop decode,
 (b) bigram-LM decode, and (c) the hybrid MLP acoustic model. Writes
 benchmarks/results_accuracy.json.
 
-Deterministic; runs on CPU or TPU (pass --cpu to force CPU).
+Deterministic; runs on CPU or GPU (pass --cpu to force CPU).
 
     python benchmarks/demo_accuracy.py [--cpu]
 """
@@ -160,7 +160,7 @@ def main() -> None:
     # (b7) RNN-transducer (alignment-free, streaming-native): held-out PER
     from mogasr.am.rnnt import rnnt_greedy_decode_device as rnnt_greedy_decode
 
-    # low-data transducer recipe (TPU_NOTES): stateless prediction net +
+    # low-data transducer recipe: stateless prediction net +
     # auxiliary CTC loss (pipe.train_rnnt defaults) — the LSTM prediction
     # net without aux supervision memorizes this 48-utt set (PER 0.87)
     rnnt_tcfg = TrainConfig(nn_hidden=128, nn_layers=2, lr=3e-3, num_nn_steps=800)

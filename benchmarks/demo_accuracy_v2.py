@@ -47,7 +47,9 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+    from mogasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import numpy as np
     import jax.numpy as jnp
 

@@ -48,7 +48,9 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+    from mogasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import numpy as np
 
     from mogasr import pipeline as pipe
@@ -181,7 +183,7 @@ def main() -> None:
         # default (tau=20) measured a criterion-up/WER-down collapse on v3
         # (41% vs ML 29.2%; chained after MMI: 37%) — the ~30%-WER regime
         # needs ~20x the smoothing (probed tau=100/400: 27.6%/25.5%,
-        # /tmp-probe session 2026-08-21, recorded in TPU_NOTES round 5)
+        # in a probe run)
         gmm_smbr, smbr_hist = train_smbr(tb, lex, topo_t, gmm, n_iters=4,
                                          acoustic_scale=0.1,
                                          i_smooth_tau=400.0)

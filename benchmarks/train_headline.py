@@ -9,7 +9,7 @@ WER, and saves everything bench.py needs to time THAT checkpoint to
 
     python benchmarks/train_headline.py [--train-utts N] [--components K] ...
 
-Runs on the TPU (several minutes of EM); deterministic.
+Runs on the GPU (several minutes of EM); deterministic.
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+    from mogasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from mogasr import pipeline as pipe
     from mogasr.config import (

@@ -13,7 +13,10 @@ import numpy as np
 
 from mogasr.config import PipelineConfig, override
 from mogasr.hmm.lexicon import Lexicon, load_lexicon, synthetic_lexicon
+from mogasr.utils.compile_cache import enable_compile_cache
 from mogasr.utils.metrics import RunLogger
+
+enable_compile_cache()
 
 
 def add_corpus_args(p: argparse.ArgumentParser) -> None:

@@ -123,7 +123,7 @@ def main() -> None:
     p.add_argument("--nn-precision", default="float32",
                    choices=["float32", "bfloat16", "int8"],
                    help="neural-AM inference precision (hybrid --am mlp/"
-                        "lstm/...): bfloat16 = MXU-native params+activations "
+                        "lstm/...): bfloat16 = half-precision params+activations "
                         "(any arch); int8 = dynamic-activation int8 GEMMs "
                         "(mlp and lstm) — mogasr.am.quantize; scoring "
                         "epilogue and Viterbi stay f32 in every mode")

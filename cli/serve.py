@@ -268,13 +268,13 @@ def main() -> None:
                    help="batched session engine (GMM/hybrid, --ctc, --rnnt, "
                         "and --aed families): ONE device dispatch chain per "
                         "tick advances ALL live sessions instead of "
-                        "per-session batch-1 dispatches — the TPU-native "
+                        "per-session batch-1 dispatches — the batched "
                         "serving mode (mogasr.serving.engine)")
     p.add_argument("--engine-capacity", type=int, default=16,
                    help="engine slot count (= max concurrent sessions)")
     p.add_argument("--aed-stream-precision",
                    choices=["float32", "bfloat16"], default="float32",
-                   help="AED engine chunk-step precision (bf16 MXU for the "
+                   help="AED engine chunk-step precision (bf16 matmuls for the "
                         "encoder-compute-bound tick; finals stay f32 exact)")
     p.add_argument("--feature-path", choices=["device", "host"],
                    default="device",

@@ -20,7 +20,6 @@ from cli.common import (
 from mogasr.config import BatchConfig, FrontendConfig, GmmConfig, TopologyConfig, TrainConfig
 from mogasr.hmm.topology import build_topology
 from mogasr.pipeline import featurize, train_gmm
-from mogasr.utils.checkpoint import save_checkpoint
 from mogasr.utils.metrics import Timer
 
 
@@ -106,6 +105,8 @@ def main() -> None:
             "expected_acc_first": smbr_hist[0], "expected_acc_last": smbr_hist[-1],
             "wall_sec": ts.seconds,
         })
+
+    from mogasr.utils.checkpoint import save_checkpoint  # orbax, checkpoints only
 
     ckpt = os.path.join(os.path.abspath(args.run_dir), "gmm")
     save_checkpoint(ckpt, gmm._asdict(), step=len(history))

@@ -32,7 +32,7 @@ def main() -> None:
                    choices=["lstm", "transformer"],
                    help="neural LM architecture: recurrent (unbounded "
                         "context, O(U) scan) or causal Transformer "
-                        "(GEMM-parallel over positions — the TPU-friendly "
+                        "(GEMM-parallel over positions — the accelerator-friendly "
                         "default for offline rescoring)")
     p.add_argument("--hidden", type=int, default=128)
     p.add_argument("--layers", type=int, default=1)

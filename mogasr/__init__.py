@@ -1,16 +1,17 @@
-"""mogasr-tpu: a TPU-native speech-recognition framework (JAX/Pallas/pjit).
+"""mogasr: a speech-recognition framework in JAX (GMM-HMM and neural models).
 
 Built from scratch with the capabilities of the reference repo
 taufikxu/MOG-ASR (see SURVEY.md): LibriSpeech audio front end, diagonal-GMM
 and neural (MLP/LSTM) acoustic scorers, on-device Viterbi/beam decoding and
-forced alignment, EM and SGD training, data-parallel evaluation over ICI.
+forced alignment, EM and SGD training, data-parallel evaluation over a mesh.
 
 Public entry points mirror the reference's surface (BASELINE.json
 north_star: "feature-extraction and scoring entry points"):
 
     mogasr.extract_features(wave, cfg)   -> [T, D] float32 features
-    mogasr.gmm_loglik(x, gmm)            -> [N, S] log-likelihoods (XLA path)
-    mogasr.gmm_loglik_pallas(x, gmm)     -> [N, S] (fused Pallas TPU kernel)
+    mogasr.gmm_loglik(x, gmm)            -> [N, S] log-likelihoods (plain XLA)
+    mogasr.score_frames(feats, gmm)      -> [..., S] (the system's scorer:
+                                            fused kernel on a GPU)
     mogasr.viterbi / mogasr.forward_backward
     mogasr.ctc_loss / mogasr.rnnt_loss / mogasr.train_bpe
     mogasr.aed_decode_batch (attention encoder-decoder beam search)
@@ -42,10 +43,10 @@ def __getattr__(name):  # lazy: keep `import mogasr` light, no jax at import
         import mogasr.am.gmm as _g
 
         return getattr(_g, name)
-    if name == "gmm_loglik_pallas":
-        from mogasr.am.gmm_pallas import gmm_loglik_pallas
+    if name == "score_frames":
+        from mogasr.am.gmm_pallas import score_frames
 
-        return gmm_loglik_pallas
+        return score_frames
     if name == "viterbi":
         from mogasr.decoder.viterbi import viterbi
 

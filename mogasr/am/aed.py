@@ -10,12 +10,12 @@ No reference file can be cited (SURVEY.md §0: /root/reference is empty);
 capability built from the published architecture (Gulati et al. 2020
 Conformer; Vaswani et al. 2017 decoder).
 
-TPU-first design decisions:
+Accelerator-first design decisions:
   - every path is static-shape: fixed label width L (padding -1), fixed
     beam width K and token budget U_max in the jitted beam search
     (`lax.scan` over decode steps — no data-dependent Python control flow);
   - the encoder subsamples time 4x with two stride-2 convs, so attention
-    and the decoder run at 25 Hz — attention cost drops 16x and the MXU
+    and the decoder run at 25 Hz — attention cost drops 16x and the matrix unit
     sees bigger per-frame GEMMs;
   - self-attention uses a learned relative-position bias table (clipped
     distance), gathered once per block — einsum attention, no dynamic
@@ -659,7 +659,7 @@ def aed_fusion_matrix(model: AedModel, unit_lm, weight: float) -> jax.Array:
     are zero (ending a hypothesis costs no LM term, matching the CTC
     fusion's telescoping semantics), and the eos row is zero (finished
     beams' forced-eos steps are LM-free). Inside the beam scan this is one
-    row gather per step — the TPU-native form of shallow fusion (no host
+    row gather per step — the on-device form of shallow fusion (no host
     callback, no per-hypothesis LM state)."""
     V, sos = model.vocab, model.sos
     nu = unit_lm.n_units

@@ -12,7 +12,7 @@ Requirements (checked): teacher and student share one unit inventory
 per-input-frame logits (``ConformerAm`` repeat-upsamples its 4x-subsampled
 trunk back to frame rate), so frame-level matching needs no alignment step.
 
-TPU shape: ONE jitted train step runs the teacher forward (under
+Device shape: ONE jitted train step runs the teacher forward (under
 ``stop_gradient``), the student forward, the masked KL + CTC losses, and
 the optimizer update. Teacher posteriors are produced and consumed inside
 the same XLA program — they never leave HBM and nothing is recomputed on

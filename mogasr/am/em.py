@@ -182,7 +182,7 @@ def split_components(
     Occupancy-gated allocation (round-2): when `state_occ` ([S] frame counts
     from the previous E-step) is given, a state is split only if after
     doubling each of its components would still average at least
-    `min_frames_per_comp` frames — the TPU-shaped stand-in for Kaldi's
+    `min_frames_per_comp` frames — the static-shape stand-in for Kaldi's
     occupancy-proportional Gaussian allocation.  Gated-out states keep their
     existing components; their duplicate slots get weight 0 (log-weight -inf:
     inert under both scoring and EM until the state earns enough occupancy,

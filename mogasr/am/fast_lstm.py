@@ -1,11 +1,11 @@
-"""Prefused LSTM forward: the TPU-shaped evaluation of LstmAm checkpoints.
+"""Prefused LSTM forward: the GEMM-shaped evaluation of LstmAm checkpoints.
 
 The stock ``nn.RNN(nn.OptimizedLSTMCell)`` scan computes BOTH matmuls per
 frame — x_t @ W_i ([B,D]x[D,4H]) and h @ W_h ([B,H]x[H,4H]). At serving
-batch sizes these per-step GEMMs are far too small to fill the MXU, and the
+batch sizes these per-step GEMMs are far too small to fill the matrix units, and the
 input half does not even depend on the recurrence. This module evaluates
 the SAME checkpoint by hoisting the input projection of ALL frames into a
-single [B·T, D] x [D, 4H] GEMM per layer (MXU-saturating, fused by XLA
+single [B·T, D] x [D, 4H] GEMM per layer (matrix-unit-saturating, fused by XLA
 with the surrounding elementwise work) and scanning only the irreducibly
 sequential recurrent half — about half the scan FLOPs, and the other half
 moved from latency-bound to throughput-bound execution.
@@ -18,7 +18,7 @@ rows cannot contaminate state. Gate math mirrors flax's LSTMCell:
 i/f/o = sigmoid, g = tanh, c' = f*c + i*g, h' = o*tanh(c').
 
 Whether this path becomes the production default is a measurement question
-(docs/TPU_NOTES.md methodology); it is exposed to benchmarks and scorers as
+on the card; it is exposed to benchmarks and scorers as
 an opt-in first.
 """
 

@@ -5,7 +5,7 @@ over all components and states (BASELINE.json: "the mixture-of-Gaussians
 acoustic scorer (diagonal-covariance log-likelihood over all components and
 states) runs as a batched Pallas matmul-style kernel").
 
-The math is cast into GEMM form so the MXU does the work:
+The math is cast into GEMM form so a matrix unit does the work:
 
     loglik[t, s] = logsumexp_k( c[s,k] + x_t . b[s,k] + x_t^2 . a[s,k] )
 
@@ -15,10 +15,10 @@ with per-(state, component) precomputed
     c = log w - 0.5 (D log 2pi + sum log var + sum mean^2/var)   [S, K]
 
 so scoring is one [N, 2D] x [2D, S*K] GEMM plus a K-wise logsumexp epilogue.
-This module holds the parameter pytree, a NumPy oracle, and a pure-JAX
-reference/fallback (memory-chunked over states). The production Pallas kernel
-that fuses the logsumexp epilogue (never materializing [N, S*K] in HBM) lives
-in mogasr.am.gmm_pallas.
+This module holds the parameter pytree, a NumPy oracle, and the plain JAX
+scorer (memory-chunked over states). The GPU kernel that fuses the epilogue
+(never materializing [N, S*K] in device memory) and the system's one scorer
+entry, ``score_frames``, live in mogasr.am.gmm_pallas.
 """
 
 from __future__ import annotations
@@ -118,21 +118,29 @@ def gmm_loglik(
     state_chunk: int = 128,
     precision=HIGHEST,
     mode: str = "sum",
+    compute_dtype: str = "float32",
 ) -> jax.Array:
     """Pure-JAX scorer: [N, D] -> [N, S], chunked over states to bound memory.
 
-    Reference/fallback path; the Pallas kernel (gmm_pallas.gmm_loglik_pallas)
-    is the production TPU path. Chunking keeps the [N, chunk*K] intermediate
-    bounded instead of materializing [N, S*K] in HBM.
+    The plain reference, and the scorer on every platform but the GPU (see
+    gmm_pallas.score_frames). Chunking keeps the [N, chunk*K] intermediate
+    bounded instead of materializing [N, S*K] in device memory.
 
     mode="max" scores with the best component only (the classic Viterbi /
     max-approximation to the mixture: loglik ~ max_k log(w_k N_k)); it is a
-    lower bound within log K nats of the exact value and the throughput
-    option for the Pallas kernel's VPU-bound logsumexp epilogue.
+    lower bound within log K nats of the exact value and skips the exp/log
+    epilogue.
+
+    compute_dtype="float16" rounds the product's operands to float16 and
+    accumulates in float32 (the constant c is added in float32).
     """
     S, K, D = gmm.means.shape
     nat = natural_params(gmm)
     x2 = quadratic_features(x)  # [N, 2D]
+    dt = jnp.dtype(compute_dtype)
+    if dt != jnp.float32:
+        x2 = x2.astype(dt)
+        precision = None
     n_chunks = -(-S // state_chunk)
     S_pad = n_chunks * state_chunk
     ab = jnp.pad(nat.ab.reshape(2 * D, S, K), ((0, 0), (0, S_pad - S), (0, 0)))
@@ -142,7 +150,8 @@ def gmm_loglik(
 
     def score_chunk(args):
         ab_c, c_c = args
-        s = jnp.dot(x2, ab_c, precision=precision) + c_c[None, :]  # [N, chunk*K]
+        s = jnp.dot(x2, ab_c.astype(dt), precision=precision,
+                    preferred_element_type=jnp.float32) + c_c[None, :]  # [N, chunk*K]
         s = s.reshape(x.shape[0], state_chunk, K)
         if mode == "max":
             return jnp.max(s, axis=-1)
@@ -152,10 +161,13 @@ def gmm_loglik(
     return out.transpose(1, 0, 2).reshape(x.shape[0], S_pad)[:, :S]
 
 
-def gmm_loglik_np(x: np.ndarray, weights: np.ndarray, means: np.ndarray, variances: np.ndarray) -> np.ndarray:
-    """NumPy oracle (also the CPU baseline for BASELINE.md's 50x target).
+def gmm_loglik_np(x: np.ndarray, weights: np.ndarray, means: np.ndarray,
+                  variances: np.ndarray, mode: str = "sum") -> np.ndarray:
+    """NumPy float64 oracle.
 
     x: [N, D]; weights: [S, K]; means/variances: [S, K, D] -> [N, S] float64.
+    mode="max" returns the best component's log-likelihood instead of the
+    mixture's.
     """
     x = np.asarray(x, np.float64)
     w = np.asarray(weights, np.float64)
@@ -167,6 +179,8 @@ def gmm_loglik_np(x: np.ndarray, weights: np.ndarray, means: np.ndarray, varianc
     ll = -0.5 * (D * LOG_2PI + np.log(var).sum(-1)[None] + (diff ** 2 / var[None]).sum(-1))
     ll = ll + np.log(np.maximum(w, 1e-30))[None]
     m = ll.max(axis=-1, keepdims=True)
+    if mode == "max":
+        return m[..., 0]
     return (m[..., 0] + np.log(np.exp(ll - m).sum(-1))).astype(np.float64)
 
 

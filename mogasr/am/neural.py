@@ -192,9 +192,7 @@ class ConformerAm(nn.Module):
     repeat-upsampled back to the INPUT frame rate so every consumer
     (CTC loss, per-frame CE, scorers, graph decode) sees the standard
     [B, T, n_pdfs] contract. The attention/conv GEMMs run at T/4 — an
-    MXU-friendly encoder (jitted A/B at matched size: 686 vs 644 utt/s
-    against the LSTM encoder, results_ctc_jit_ab.json; the earlier
-    "~25x" reading was an eager-harness artifact, see TPU_NOTES round 3).
+    matmul-friendly encoder.
     Offline only (no chunked stream variant here; use the streaming AED
     for that)."""
 

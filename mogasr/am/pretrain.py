@@ -8,7 +8,7 @@ unsupervised pre-training"), the conv/attention-era descendant of APC.
 The pretrained trunk then initializes supervised CE/CTC fine-tuning,
 the standard low-label production recipe.
 
-Design notes (TPU):
+Design notes:
 - The pretraining model IS the ordinary ``build_model(arch, feat_dim,...)``
   classifier with the output head sized to the feature dimension, so every
   trunk parameter keeps the exact path it has in the supervised model of

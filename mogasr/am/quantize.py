@@ -13,8 +13,8 @@ precision inference paths for the neural families:
   (symmetric, 127 levels — the scale folds into the existing per-channel
   epilogue), activations quantized dynamically per row; the GEMM runs
   int8 x int8 -> int32 via ``lax.dot_general(preferred_element_type=
-  int32)``, which XLA lowers to the TPU's native int8 MXU mode (2x bf16
-  issue rate, 4x f32 HBM saving on weights).  For the LSTM the int8 GEMMs
+  int32)``, which XLA lowers to the accelerator's int8 matrix path where it has
+  one (4x f32 device-memory saving on weights).  For the LSTM the int8 GEMMs
   are the prefused input projections + output head (the bandwidth-bound
   bulk); the recurrence stays f32 (its error compounds over T and its
   small per-step GEMM is latency-bound — int8 buys nothing there).
@@ -292,17 +292,6 @@ def make_quantized_logits(model, params, precision: str):
     """Dispatch: precision in {"float32", "bfloat16", "int8"} -> jitted
     (feats, n_frames) -> f32 logits closure."""
     if precision == "float32":
-        # use_pallas_lstm gate (DEMOTED round 3): the round-2 21-vs-1874
-        # A/B was eager-vs-jitted and void; the fair jitted A/B reads
-        # stock 2722 vs Pallas 2437 utt/s, so the gate is off and this
-        # takes the stock jitted closure below (see the gate's docstring).
-        from mogasr.am.lstm_pallas import (
-            make_pallas_lstm_logits, use_pallas_lstm,
-        )
-
-        if use_pallas_lstm(model):
-            return make_pallas_lstm_logits(params)
-
         @jax.jit
         def logits(feats, n_frames):
             return model.apply(params, feats, n_frames)

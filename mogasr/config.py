@@ -1,4 +1,4 @@
-"""Configuration system for the mogasr-tpu pipeline.
+"""Configuration system for the mogasr pipeline.
 
 Frozen dataclasses composed into one :class:`PipelineConfig`. Every run
 serializes its config into the run directory for reproducibility (SURVEY.md §5).
@@ -154,7 +154,7 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Data-parallel utterance sharding over ICI (SURVEY.md §2)."""
+    """Data-parallel utterance sharding over devices (SURVEY.md §2)."""
 
     data_axis: str = "data"
     num_devices: int = 0  # 0 = all visible devices

@@ -1,6 +1,6 @@
 """Utterance batching: length sorting, bucketing, padding.
 
-SURVEY.md §2 "Dataset / batching" row. Static shapes are a TPU requirement
+SURVEY.md §2 "Dataset / batching" row. Static shapes are an XLA requirement
 (one XLA compile per bucket, reused forever): utterances are sorted by
 length, grouped, and padded up to a small set of bucket ceilings derived from
 BatchConfig.bucket_boundaries (frames), so the jitted pipeline sees only a

@@ -1,6 +1,6 @@
 """Prefetching input pipeline: overlap host work with device compute.
 
-The production input-loading shape for a TPU pipeline: the host stages the
+The production input-loading shape for an accelerator pipeline: the host stages the
 NEXT batch (audio decode, framing dispatch, optional ``jax.device_put``)
 while the device is still busy with the current one.  Python threads are
 the right tool here — the host side is IO/NumPy (releases the GIL) and

@@ -148,10 +148,9 @@ def viterbi_chunked(
 
     SURVEY §7 hard-part 2 names a log-depth max-plus ``associative_scan``
     over T as the fallback when the sequential scan's latency binds. The
-    FULL log-depth form needs max-plus matrix-MATRIX products: O(J^3) VPU
-    work per combine (the MXU cannot do max-plus), i.e. J^2/deg ~ 5000x
-    the sequential work at the headline word-loop J — arithmetically dead
-    (docs/TPU_NOTES.md round 5). What survives of the idea is the
+    FULL log-depth form needs max-plus matrix-MATRIX products: O(J^3) elementwise
+    work per combine (no matrix unit does max-plus), i.e. J^2/deg ~ 5000x
+    the sequential work at the headline word-loop J — arithmetically dead. What survives of the idea is the
     TWO-LEVEL scan implemented here, which cuts sequential DEPTH from T
     to ~(C + T/C + C) for J x more work (deg -> J per frame):
 

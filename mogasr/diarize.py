@@ -5,7 +5,7 @@ Who-spoke-when over long multi-speaker recordings:
   1. energy VAD (frontend/vad.py) finds speech regions;
   2. speech is cut into fixed-length overlapping windows — FIXED length so
      the whole recording featurizes as ONE static-shape batch through the
-     fused front end (one compile, one dispatch; TPU-friendly), with the
+     fused front end (one compile, one dispatch), with the
      ragged tail handled by the frontend's per-utterance frame masking;
   3. each window gets an i-vector (am/ivector.py) against a UBM + total
      variability model (trained on a corpus via ``train_diarizer`` or

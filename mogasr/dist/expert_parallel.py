@@ -9,7 +9,7 @@ device) so every shape is static — tokens past an expert's capacity are
 dropped (their combine weight is exactly 0), the standard Switch-style
 overflow rule, tested explicitly.
 
-This is the TPU-native MoE recipe: the all_to_all rides ICI, buffers are
+This is the XLA-native MoE recipe: the all_to_all is a collective, buffers are
 lane-aligned, and autodiff differentiates through both shuffles (the
 transpose of all_to_all is all_to_all), so ``make_ep_train_step`` is
 plain ``jax.grad`` with a load-balance auxiliary loss (Shazeer et al.'s

@@ -1,9 +1,9 @@
 """Device mesh construction for data-parallel utterance sharding.
 
 SURVEY.md §2 "Parallelism strategies": the one first-class strategy is DP over
-a 1-D ``('data',)`` mesh with metrics/stats allreduced over ICI
+a 1-D ``('data',)`` mesh with metrics/stats allreduced across devices
 (BASELINE.json north_star: "data-parallel utterance sharding allreduced over
-ICI"). The TPU-native equivalent of the reference's (nonexistent) comm
+ICI"). The JAX-native equivalent of the reference's (nonexistent) comm
 backend is XLA collectives: jit over NamedSharding inputs inserts the
 all-reduces; no NCCL/MPI analogue is needed.
 

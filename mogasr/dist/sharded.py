@@ -3,10 +3,10 @@
 SURVEY.md §3.5: the eval/EM entry points are the only ones that cross chips.
 Implementation is idiomatic jit-over-NamedSharding: inputs carry a
 ``('data',)``-sharded leading dim, parameters are replicated, and XLA inserts
-the ICI all-reduces where outputs must be replicated (EM stats via the
+the all-reduces where outputs must be replicated (EM stats via the
 segment-sum -> replicated-output contraction; NN grads via the mean loss).
-``shard_map`` is deliberately not needed — there is no manual collective the
-compiler can't derive here.
+The one ``shard_map`` is inside the GMM scorer (``score_frames`` with the
+mesh), because its GPU kernel has no partitioning rule of its own.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ import numpy as np
 from jax.sharding import Mesh
 
 from mogasr.am import em
-from mogasr.am.gmm import GmmSet, gmm_loglik
-from mogasr.am.gmm_pallas import gmm_loglik_batched
+from mogasr.am.gmm import GmmSet
+from mogasr.am.gmm_pallas import score_frames
 from mogasr.config import FrontendConfig, TrainConfig
 from mogasr.decoder import viterbi as vit
 from mogasr.dist.mesh import data_sharding, replicated
@@ -30,8 +30,8 @@ from mogasr.dist.mesh import data_sharding, replicated
 def make_sharded_em_step(mesh: Mesh):
     """(gmm, feats[N,D], labels[N]) -> GmmStats, with N sharded over chips.
 
-    The [S,K] stat outputs are replicated, so XLA emits a psum over ICI for
-    the cross-chip reduction — the EM allreduce of SURVEY.md §3.3.
+    The [S,K] stat outputs are replicated, so XLA emits a psum for the
+    cross-chip reduction — the EM allreduce of SURVEY.md §3.3.
     """
     dsh = data_sharding(mesh)
     rep = replicated(mesh)
@@ -61,14 +61,9 @@ def make_sharded_align_step(mesh: Mesh, acoustic_scale: float = 1.0):
         jax.jit,
         in_shardings=(rep, dsh, dsh, dsh),
         out_shardings=dsh,
-        static_argnums=(4,),
     )
-    def align_step(gmm, feats, n_frames, graphs, use_pallas=False):
-        B, T, D = feats.shape
-        if use_pallas:
-            ll = gmm_loglik_batched(feats, gmm)
-        else:
-            ll = gmm_loglik(feats.reshape(B * T, D), gmm).reshape(B, T, -1)
+    def align_step(gmm, feats, n_frames, graphs):
+        ll = score_frames(feats, gmm, mesh=mesh)
         return vit.viterbi(ll, graphs, n_frames, acoustic_scale=acoustic_scale)
 
     return align_step
@@ -80,7 +75,7 @@ def make_sharded_soft_em_step(mesh: Mesh, acoustic_scale: float = 1.0):
     (gmm, feats[B,T,D], n_frames[B], graphs{...[B,J]}) -> GmmStats.
     Each chip runs scoring + forward-backward on its utterance shard and
     accumulates soft stats; the replicated [S,K] stat outputs make XLA emit
-    the ICI psum — the soft counterpart of make_sharded_em_step.
+    the psum — the soft counterpart of make_sharded_em_step.
     """
     from mogasr.decoder import forward_backward as fbd
 
@@ -95,7 +90,7 @@ def make_sharded_soft_em_step(mesh: Mesh, acoustic_scale: float = 1.0):
     def soft_em_step(gmm: GmmSet, feats, n_frames, graphs) -> em.GmmStats:
         B, T, D = feats.shape
         n_pdfs = gmm.means.shape[0]
-        ll = gmm_loglik(feats.reshape(B * T, D), gmm).reshape(B, T, -1)
+        ll = score_frames(feats, gmm, mesh=mesh)
         res = fbd.forward_backward(ll, graphs, n_frames,
                                   acoustic_scale=acoustic_scale)
         post = fbd.state_posteriors_to_pdf(
@@ -126,8 +121,7 @@ def make_sharded_decode_step(mesh: Mesh, acoustic_scale: float = 1.0):
         out_shardings=(dsh, rep),
     )
     def decode_step(gmm, feats, n_frames, graphs):
-        B, T, D = feats.shape
-        ll = gmm_loglik(feats.reshape(B * T, D), gmm).reshape(B, T, -1)
+        ll = score_frames(feats, gmm, mesh=mesh)
         res = vit.viterbi(ll, graphs, n_frames, acoustic_scale=acoustic_scale)
         totals = {
             "frames": jnp.sum(n_frames),
@@ -143,7 +137,7 @@ def make_sharded_stats_step(mesh: Mesh, accumulate_fn):
     the (gmm, feats[N, D], labels[N]) -> stats-pytree signature — covers
     fMLLR (am.fmllr.accumulate_fmllr_stats), MLLR
     (am.mllr.accumulate_mllr_stats), and hard-EM stats alike. Frames are
-    sharded over chips; the replicated stat outputs make XLA insert the ICI
+    sharded over chips; the replicated stat outputs make XLA insert the
     psum (the adaptation counterpart of the EM allreduce)."""
     dsh = data_sharding(mesh)
     rep = replicated(mesh)
@@ -161,7 +155,7 @@ def make_sharded_stats_step(mesh: Mesh, accumulate_fn):
 
 def make_sharded_ctc_train_step(model, cfg: TrainConfig, mesh: Mesh):
     """CTC train step, batch sharded / params replicated (alignment-free
-    counterpart of make_sharded_train_step; same derived ICI grad psum)."""
+    counterpart of make_sharded_train_step; same derived grad psum)."""
     import optax
 
     from mogasr.am.ctc import CtcTrainState, ctc_objective
@@ -311,7 +305,7 @@ def make_sharded_rnnt_pruned_train_step(
     """Pruned-transducer train step (mogasr.am.rnnt_pruned), batch sharded /
     params replicated.  Everything per-utterance — the simple pass, the
     occupancy bounds, the banded joint — shards cleanly on the batch axis;
-    only the grad psum rides ICI, exactly like the dense RNN-T step."""
+    only the grad psum crosses devices, exactly like the dense RNN-T step."""
     import optax
 
     from mogasr.am.rnnt import RnntTrainState
@@ -349,7 +343,7 @@ def make_sharded_nn_mmi_step(
     """Sequence-discriminative (MMI) hybrid-NN step (am/nn_seq), batch
     sharded / params replicated: the per-utterance alignment-chain (num)
     and word-loop (den) graphs are [B, J] arrays, so they shard on the
-    batch axis like the features; only the grad psum rides ICI."""
+    batch axis like the features; only the grad psum crosses devices."""
     import jax.numpy as jnp
     import optax
 
@@ -387,7 +381,7 @@ def make_sharded_nn_mmi_step(
 
 def make_sharded_aed_train_step(model, cfg: TrainConfig, mesh: Mesh):
     """AED (Conformer + Transformer decoder) train step, batch sharded /
-    params replicated — same derived ICI grad psum as the CTC/RNN-T steps."""
+    params replicated — same derived grad psum as the CTC/RNN-T steps."""
     import optax
 
     from mogasr.am.aed import AedTrainState, aed_objective
@@ -460,7 +454,7 @@ def make_sharded_train_step(model, cfg: TrainConfig, mesh: Mesh, spec_augment: b
     """NN train step with the batch sharded and params/opt-state replicated.
 
     The mean CE loss contracts over the sharded batch dim -> XLA inserts the
-    gradient all-reduce over ICI.
+    gradient all-reduce across devices.
     """
     from mogasr.am.train_nn import TrainState, make_optimizer
     from mogasr.am.neural import frame_ce_loss

@@ -41,9 +41,8 @@ def make_tp_mesh(n_data: int, n_model: int,
                  devices: Optional[Sequence] = None) -> Mesh:
     """2-D device mesh with axes ('data', 'model').
 
-    'model' should map to the faster/inner ICI dimension on real slices; with
-    jax.devices() order on a TPU slice, adjacent devices share a link, so the
-    model axis is innermost here.
+    The model axis is innermost, so it spans adjacent devices in
+    jax.devices() order.
     """
     devs = list(devices) if devices is not None else jax.devices()
     if len(devs) < n_data * n_model:

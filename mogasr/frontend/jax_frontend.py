@@ -1,6 +1,6 @@
-"""Fused JAX/XLA audio front end operating on padded utterance batches in HBM.
+"""Fused JAX/XLA audio front end operating on padded utterance batches on device.
 
-TPU-first design (BASELINE.json north_star: "the audio front end ... becomes a
+Accelerator-first design (BASELINE.json north_star: "the audio front end ... becomes a
 single fused JAX/Pallas kernel chain operating on padded utterance batches in
 HBM"):
 
@@ -13,7 +13,7 @@ HBM"):
   only the first frame_length rows of the DFT matrix are nonzero.
 - Mel filterbank and DCT (with the cepstral lifter folded in) are GEMMs too.
 - All parity-critical GEMMs run with Precision.HIGHEST so fp32 parity with the
-  NumPy oracle holds on TPU (SURVEY.md §7 "hard parts" #1).
+  NumPy oracle holds on the accelerator (SURVEY.md §7 "hard parts" #1).
 - Deltas use per-utterance edge replication via clipped gathers so padded
   batches match the per-utterance oracle exactly; CMVN is a masked reduction
   over valid frames only (padding-invariance, SURVEY.md §7 #4).
@@ -138,8 +138,8 @@ def _frame_signal_strided(wave: jax.Array, t_max: int, cfg: FrontendConfig) -> j
 
     frame[t, k*H + r] = wave[(t + k) * H + r], so each hop-sized column chunk
     k is just a shifted [T, H] reshape of the waveform — slices and reshapes
-    XLA handles at memcpy speed, where a 2-D gather of the same data measured
-    ~30 ms per batch on v5e.
+    XLA handles at memcpy speed, where a 2-D gather of the same data is an
+    indexed load per element.
     """
     B = wave.shape[0]
     L, H = cfg.frame_length, cfg.frame_shift

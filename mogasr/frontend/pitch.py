@@ -4,7 +4,7 @@ The classical third stream next to spectral features: per frame a
 (POV, mean-subtracted log-f0, delta log-f0) triple, appended to
 MFCC/fbank/PLP for tonal-language and noisy-channel robustness.  The
 algorithm follows the Kaldi pitch tracker's shape (Ghahremani et al.,
-ICASSP 2014) re-derived for TPU execution (no reference implementation
+ICASSP 2014) re-derived for batched device execution (no reference implementation
 exists for this capability — the /root/reference mount is empty,
 SURVEY.md §0):
 

@@ -7,7 +7,7 @@ neural LM used as a SECOND pass: extract N-best from the lattice, score every
 hypothesis with the RNN-LM, and log-linearly interpolate with the first-pass
 score (the standard two-pass neural rescoring recipe).
 
-TPU-native design: the whole N-best batch is scored in ONE jitted device call
+Device design: the whole N-best batch is scored in ONE jitted device call
 — embedding + ``nn.RNN`` (a ``lax.scan`` over tokens) + dense — with static
 padded shapes, rather than a per-hypothesis host loop. Training reuses the
 repo's optimizer/config conventions (mogasr.am.train_nn.make_optimizer).
@@ -103,9 +103,9 @@ class NeuralLm(nn.Module):
 class TransformerLm(nn.Module):
     """Causal Transformer LM: same (tokens_in [B,U], n_tokens [B]) -> logits
     [B,U,V] contract as NeuralLm, so every scorer/trainer/rescoring path is
-    shared. More TPU-idiomatic than the LSTM: each layer is a handful of
-    batched GEMMs parallel over ALL positions (MXU-saturating) instead of a
-    U-step ``lax.scan`` whose per-token matmul is too small to fill the MXU.
+    shared. More accelerator-idiomatic than the LSTM: each layer is a handful of
+    batched GEMMs parallel over ALL positions (matrix-unit-saturating) instead of a
+    U-step ``lax.scan`` whose per-token matmul is too small to fill the matrix units.
 
     Padding needs no extra mask: ``lm_batch`` pads strictly AFTER the valid
     prefix, so the causal mask already hides every padded key from every

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from mogasr.am import em
-from mogasr.am.gmm import GmmSet, gmm_loglik
-from mogasr.am.gmm_pallas import gmm_loglik_batched, _on_tpu
+from mogasr.am.gmm import GmmSet
+from mogasr.am.gmm_pallas import score_frames
 from mogasr.config import (
     BatchConfig,
     DecodeConfig,
@@ -181,14 +181,11 @@ def compute_global_cmvn(batches: Sequence[FeatBatch]):
     return mean.astype(np.float32), (1.0 / np.sqrt(var)).astype(np.float32)
 
 
-def score_batch(feats: jax.Array, gmm: GmmSet, use_pallas: Optional[bool] = None) -> jax.Array:
-    """[B, T, D] -> [B, T, S]; Pallas kernel on TPU, chunked XLA elsewhere."""
-    if use_pallas is None:
-        use_pallas = _on_tpu()
-    B, T, D = feats.shape
-    if use_pallas:
-        return gmm_loglik_batched(feats, gmm)
-    return gmm_loglik(feats.reshape(B * T, D), gmm).reshape(B, T, -1)
+def score_batch(feats: jax.Array, gmm: GmmSet) -> jax.Array:
+    """[B, T, D] -> [B, T, S] exact float32 scores through the system's one
+    GMM scorer entry (gmm_pallas.score_frames: the fused kernel on a GPU,
+    XLA elsewhere, per shard when feats is sharded over a mesh)."""
+    return score_frames(feats, gmm)
 
 
 def build_align_graphs(
@@ -575,7 +572,7 @@ def make_nn_scorer(model, params, log_priors: jax.Array,
     """Hybrid NN-HMM scorer: posteriors -> prior-scaled pseudo-likelihoods.
 
     Returns a ``scorer(fb) -> [B, T, n_pdfs]`` closure for evaluate()/decode.
-    precision: "float32" (default) | "bfloat16" (any arch, MXU-native) |
+    precision: "float32" (default) | "bfloat16" (any arch, half-precision matmuls) |
     "int8" (MlpAm and LstmAm: dynamic-activation int8 GEMMs) —
     am/quantize.py; the prior-scaled log-softmax stays f32 in every mode.
     """
@@ -795,8 +792,8 @@ def train_rnnt(
     the label history through the prediction network (mogasr.am.rnnt).
     Returns (model, params); decode with rnnt_greedy_decode(_device).
 
-    Defaults encode the low-data recipe measured on the synthetic corpus
-    (docs/TPU_NOTES.md): a STATELESS prediction net + an auxiliary CTC loss
+    Defaults encode the low-data recipe measured on the synthetic corpus:
+    a STATELESS prediction net + an auxiliary CTC loss
     on the encoder — the LSTM prediction net without auxiliary supervision
     memorizes 48-utterance training sets (train loss 0.01, held-out PER
     0.87). Pass pred_arch="lstm", aux_ctc=False for the classic transducer.
@@ -1752,7 +1749,7 @@ def decode_with_vtln(
     warped mel filterbank (one cached fused frontend per warp — framing is
     warp-invariant so the labels transfer) and the aligned log-likelihood is
     summed; each speaker takes its argmax warp for the pass-2 decode. This is
-    the standard grid-search VTLN estimator, TPU-shaped: the per-warp work is
+    the standard grid-search VTLN estimator, batched on device: the per-warp work is
     nw re-runs of the fused frontend GEMM chain plus one scoring reduction.
 
     Returns (hyps_pass2, {speaker: warp}).

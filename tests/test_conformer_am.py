@@ -1,6 +1,6 @@
 """ConformerAm (4x-subsampled Conformer encoder, repeat-upsampled to the
 frame rate): contract shape, padding invariance, and CTC learnability —
-the MXU-friendly encoder option for the CTC/hybrid families."""
+the matmul-friendly encoder option for the CTC/hybrid families."""
 
 import numpy as np
 import jax

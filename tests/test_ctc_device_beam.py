@@ -49,7 +49,7 @@ def _assert_same(got, want, k=None, tol=2e-4):
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compiler_state():
     """Mitigation for the full-suite XLA CPU segfault (VERDICT r3 #1a,
-    root-caused docs/TPU_NOTES.md round 4: compiler-state accumulation
+    root-caused as compiler-state accumulation
     after hundreds of jitted executables). Round 5 grew the suite with
     compile-heavy device-beam/device-feature modules, which moved the
     crash point EARLIER (observed in test_serve.py at ~82% of the grown

@@ -305,40 +305,6 @@ def test_sharded_nn_mmi_step_matches_local(mesh, rng):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
 
 
-def test_sharded_viterbi_pallas_matches_local(mesh, rng):
-    """The Pallas Viterbi kernel under jit-with-NamedSharding on the faked
-    mesh (interpret mode): batch-sharded decode == local, bitwise."""
-    from mogasr.config import TopologyConfig
-    from mogasr.hmm import graph as gr
-    from mogasr.hmm.lexicon import synthetic_lexicon
-    from mogasr.hmm.topology import build_topology
-    from mogasr.decoder import viterbi as vit
-    from mogasr.decoder.viterbi_pallas import viterbi_pallas
-
-    lex = synthetic_lexicon()
-    topo = build_topology(lex, TopologyConfig())
-    g = gr.loop_graph(topo)
-    B, T = 8, 10
-    graphs = {k: jnp.asarray(v) for k, v in gr.batch_graphs([g] * B).items()}
-    emit = jnp.asarray(
-        rng.standard_normal((B, T, topo.n_pdfs)).astype(np.float32))
-    nf = jnp.asarray(np.full(B, T, np.int32))
-    dsh = M.data_sharding(mesh)
-    emit_s = jax.device_put(emit, dsh)
-    nf_s = jax.device_put(nf, dsh)
-    graphs_s = {k: jax.device_put(v, dsh) for k, v in graphs.items()}
-
-    @jax.jit
-    def decode(e, gs, n):
-        r = viterbi_pallas(e, gs, n, interpret=True)
-        return r.score, r.path
-
-    score, path = decode(emit_s, graphs_s, nf_s)
-    ref = vit.viterbi(emit, graphs, nf)
-    np.testing.assert_array_equal(np.asarray(score), np.asarray(ref.score))
-    np.testing.assert_array_equal(np.asarray(path), np.asarray(ref.path))
-
-
 def test_sharded_rnnt_pruned_train_step_matches_local(mesh, rng):
     from mogasr.am import rnnt as R
     from mogasr.am.rnnt_pruned import make_rnnt_pruned_train_step

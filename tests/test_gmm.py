@@ -1,5 +1,6 @@
-"""GMM scorer tests: NumPy oracle vs pure-JAX vs Pallas (interpret) parity,
-plus scale/shape properties (SURVEY.md §4 golden-file strategy)."""
+"""GMM scorer tests: NumPy oracle vs pure-JAX vs the fused kernel (Pallas
+interpreter) parity, plus scale/shape properties (SURVEY.md §4 golden-file
+strategy). Kernel-specific cases live in test_gmm_kernel.py."""
 
 import numpy as np
 import jax
@@ -7,7 +8,7 @@ import jax.numpy as jnp
 import pytest
 
 from mogasr.am import gmm as G
-from mogasr.am.gmm_pallas import gmm_loglik_batched, gmm_loglik_pallas
+from mogasr.am.gmm_pallas import gmm_loglik_kernel, score_frames
 from mogasr.config import GmmConfig
 
 
@@ -53,7 +54,7 @@ def test_gemm_np_matches_oracle(small_gmm, x):
 
 def test_pallas_matches_oracle(small_gmm, x):
     ref = G.gmm_loglik_np(x, *map(np.asarray, small_gmm))
-    got = np.asarray(gmm_loglik_pallas(jnp.asarray(x), small_gmm, tile_m=8))
+    got = np.asarray(gmm_loglik_kernel(jnp.asarray(x), small_gmm, block_m=8, block_s=16, interpret=True))
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
 
@@ -68,14 +69,14 @@ def test_pallas_realistic_shapes():
     g = G.GmmSet(jnp.asarray(w), jnp.asarray(mu), jnp.asarray(var))
     x = rng.standard_normal((129, D)).astype(np.float32)
     ref = G.gmm_loglik_np(x, w, mu, var)
-    got = np.asarray(gmm_loglik_pallas(jnp.asarray(x), g, tile_m=64))
+    got = np.asarray(gmm_loglik_kernel(jnp.asarray(x), g, block_m=64, interpret=True))
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
 
 
 def test_batched_wrapper(small_gmm):
     rng = np.random.default_rng(4)
     feats = rng.standard_normal((2, 11, 4)).astype(np.float32)
-    out = np.asarray(gmm_loglik_batched(jnp.asarray(feats), small_gmm, tile_m=8))
+    out = np.asarray(score_frames(jnp.asarray(feats), small_gmm, interpret=True))
     assert out.shape == (2, 11, 7)
     ref = G.gmm_loglik_np(feats.reshape(-1, 4), *map(np.asarray, small_gmm)).reshape(2, 11, 7)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-5)
@@ -92,67 +93,15 @@ def test_init_shapes():
 def test_loglik_padding_rows_ignored(small_gmm, x):
     """Extra zero rows must not change valid rows' scores (SURVEY §7 #4)."""
     xp = np.concatenate([x, np.zeros((9, x.shape[1]), np.float32)])
-    a = np.asarray(gmm_loglik_pallas(jnp.asarray(x), small_gmm, tile_m=8))
-    b = np.asarray(gmm_loglik_pallas(jnp.asarray(xp), small_gmm, tile_m=8))[: x.shape[0]]
+    a = np.asarray(gmm_loglik_kernel(jnp.asarray(x), small_gmm, block_m=8, block_s=16, interpret=True))
+    b = np.asarray(gmm_loglik_kernel(jnp.asarray(xp), small_gmm, block_m=8, block_s=16, interpret=True))[: x.shape[0]]
     np.testing.assert_allclose(a, b, atol=1e-6)
 
 
-def test_int8_scoring_close_and_decode_safe(small_gmm, x):
-    """int8 quantized scoring: small absolute error, argmax mostly preserved.
-    (Decode-decision equivalence on a trained system is covered in
-    tests/test_numerics.py.)"""
-    ref = G.gmm_loglik_np(x, *map(np.asarray, small_gmm))
-    got = np.asarray(gmm_loglik_pallas(jnp.asarray(x), small_gmm, tile_m=8, compute_dtype="int8"))
-    assert np.abs(got - ref).mean() < 0.2
-    assert (got.argmax(1) == ref.argmax(1)).mean() > 0.9
-
-
-def test_pallas_wide_layout_matches_chunked():
-    """layout='wide' (one wide MXU dot per grid step) must reproduce the
-    chunked kernel at equal kc (bitwise on real TPU MXU — measured — and to
-    float rounding in interpreter mode, where XLA may vectorize the single
-    wide dot differently)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from mogasr.am.gmm import GmmSet
-    from mogasr.am.gmm_pallas import gmm_loglik_pallas
-
-    rng = np.random.default_rng(7)
-    S, K, D = 12, 8, 6
-    g = GmmSet(
-        jnp.asarray(rng.dirichlet(np.ones(K), size=S).astype(np.float32)),
-        jnp.asarray(rng.standard_normal((S, K, D)).astype(np.float32)),
-        jnp.asarray((0.5 + rng.random((S, K, D))).astype(np.float32)),
-    )
-    x = jnp.asarray(rng.standard_normal((40, D)).astype(np.float32))
-    a = np.asarray(gmm_loglik_pallas(x, g, tile_m=8, tile_s=8, kc=4, layout="chunked"))
-    b = np.asarray(gmm_loglik_pallas(x, g, tile_m=8, tile_s=8, kc=4, layout="wide"))
-    np.testing.assert_allclose(a, b, atol=1e-5)
-
-
-def test_bf16_exp_epilogue_close_and_decision_safe(small_gmm, x):
-    """exp_dtype='bfloat16' (sum-mode transcendentals in bf16, f32
-    accumulator): error is bounded by the bf16 term error on values in
-    [0, 1] — well under the bf16 GEMM's own score error — and state
-    decisions are preserved."""
-    ref = G.gmm_loglik_np(x, *map(np.asarray, small_gmm))
-    got = np.asarray(gmm_loglik_pallas(
-        jnp.asarray(x), small_gmm, tile_m=8, exp_dtype="bfloat16"))
-    # per-term relative error ~2^-8 -> logsumexp absolute error ~4e-3
-    assert np.abs(got - ref).max() < 2e-2
-    assert (got.argmax(1) == ref.argmax(1)).mean() > 0.99
-    got_wide = np.asarray(gmm_loglik_pallas(
-        jnp.asarray(x), small_gmm, tile_m=8, tile_s=8, kc=4,
-        layout="wide", exp_dtype="bfloat16"))
-    assert np.abs(got_wide - ref).max() < 2e-2
-
-
 def test_max_mode_scoring(small_gmm, x):
-    """mode='max' (Viterbi approximation): XLA and Pallas agree; the value is
-    a lower bound on the exact logsumexp within log K nats."""
+    """mode='max' (Viterbi approximation): XLA and the kernel agree; the
+    value is a lower bound on the exact logsumexp within log K nats."""
     from mogasr.am.gmm import gmm_loglik
-    from mogasr.am.gmm_pallas import gmm_loglik_pallas
 
     exact = np.asarray(gmm_loglik(jnp.asarray(x), small_gmm))
     ref = np.asarray(gmm_loglik(jnp.asarray(x), small_gmm, mode="max"))
@@ -160,12 +109,9 @@ def test_max_mode_scoring(small_gmm, x):
     assert np.all(ref <= exact + 1e-4)
     assert np.all(exact <= ref + np.log(K) + 1e-4)
 
-    got = np.asarray(gmm_loglik_pallas(jnp.asarray(x), small_gmm, mode="max"))
+    got = np.asarray(gmm_loglik_kernel(
+        jnp.asarray(x), small_gmm, mode="max", interpret=True))
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=2e-5)
-
-    got_wide = np.asarray(
-        gmm_loglik_pallas(jnp.asarray(x), small_gmm, mode="max", layout="wide"))
-    np.testing.assert_allclose(got_wide, ref, atol=2e-4, rtol=2e-5)
 
 
 def test_max_mode_decode_equivalence():

@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from mogasr.am.gmm import GmmSet
-from mogasr.am.gmm_pallas import gmm_loglik_pallas
+from mogasr.am.gmm_pallas import gmm_loglik_kernel
 from mogasr.config import FrontendConfig
 from mogasr.frontend.jax_frontend import extract_features
 from mogasr.frontend.numpy_ref import extract_features_np
@@ -36,5 +36,6 @@ def test_gmm_scorer_matches_golden():
     g = GmmSet(
         jnp.asarray(data["gmm_w"]), jnp.asarray(data["gmm_mu"]), jnp.asarray(data["gmm_var"])
     )
-    got = np.asarray(gmm_loglik_pallas(jnp.asarray(data["feats"][:50]), g, tile_m=64))
+    got = np.asarray(gmm_loglik_kernel(
+        jnp.asarray(data["feats"][:50]), g, block_m=64, interpret=True))
     np.testing.assert_allclose(got, data["loglik"], atol=1e-3, rtol=1e-4)

@@ -115,7 +115,7 @@ def test_warm_start_trains_from_pretrained_trunk(small_corpus):
     warm init measurably changes the trajectory) and still learn the task.
 
     Honesty note: on this trivially separable synthetic corpus a warm
-    start is NEUTRAL, not a win (measured, docs/TPU_NOTES.md): e.g.
+    start is NEUTRAL, not a win (measured): e.g.
     ft=30 steps cold 3.14 / warm 4.36, ft=60 cold 2.47 / warm 2.39 total
     CTC NLL on an 8-utt label budget. The capability under test is the
     mechanism — exact trunk transfer + stable fine-tuning — which is what

@@ -2,8 +2,7 @@
 
 Round 5 (VERDICT r4 item 5): the SURVEY §7 log-depth Viterbi candidate,
 implemented as the O(J^2)-work chunked form (the O(J^3) max-plus
-matrix-product associative_scan is arithmetically rejected in
-docs/TPU_NOTES.md). Exactness contract: identical paths/entered flags on
+matrix-product associative_scan is arithmetically rejected). Exactness contract: identical paths/entered flags on
 tie-free random cases (chunked re-association can perturb float sums by
 ~1 ulp), scores to 1e-5 — over align graphs, word-loop graphs, the CTC
 skip topology, ragged n_frames, and chunk sizes that do/don't divide T.
